@@ -1,13 +1,13 @@
-"""ntsm_tpu — a TPU-native sample-swap detection framework.
+"""ntsm_tpu — sample-swap detection on a GPU, written in JAX.
 
 A from-scratch reimplementation of the capabilities of ntsm (Nucleotide
-Sequence/Sample Matcher, JustinChu/ntsm v1.2.1) designed for TPU hardware:
+Sequence/Sample Matcher, JustinChu/ntsm v1.2.1) for an accelerator:
 
-* k-mer counting (``ntsm count``) runs as a JAX/XLA (and Pallas) pipeline over
-  batched, 2-bit-encoded reads with an HBM-resident static hash table and
+* k-mer counting (``ntsm count``) runs as a JAX/XLA pipeline over
+  batched, 2-bit-encoded reads with a device-resident static hash table and
   data-parallel sharding over a device mesh (reference: src/FingerPrint.hpp).
 * sample comparison (``ntsm eval``) is dense linear algebra: genotype one-hot
-  matmuls on the MXU for relatedness/IBS tallies and a blocked pairwise pass
+  matmuls for relatedness/IBS tallies and a blocked pairwise pass
   for the log-likelihood score (reference: src/CompareCounts.hpp).
 * PCA projection + candidate pre-filter replace the reference's nanoflann
   kd-tree with a batched distance computation (reference: src/KDTreeUtil.h).
@@ -22,37 +22,17 @@ import jax as _jax
 
 # The k-mer space is 2k bits (k <= 32): the rolling encoder and the
 # invertible hash64 (reference: vendor/KseqHashIterator.hpp:129-139) need
-# uint64 arithmetic, which JAX only exposes with x64 enabled.  TPUs emulate
-# 64-bit integer ops; all hot-path floating point stays explicitly f32.
+# uint64 arithmetic, which JAX only exposes with x64 enabled; all hot-path
+# floating point stays explicitly f32.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: a fresh process pays 1-3 minutes to
-# compile the counting program through this platform's compile path; with
-# the cache a repeat CLI invocation runs in seconds.  An explicit
-# JAX_COMPILATION_CACHE_DIR (or NTSM_NO_COMPILE_CACHE=1) overrides this.
-#
-# The directory is keyed by a machine signature (arch + CPU feature flags):
-# XLA:CPU persists AOT results specialized to the compiling machine's
-# vector ISA, and loading them on a different machine warns (and can
-# SIGILL).  A per-signature directory makes a cache populated elsewhere
-# invisible here instead of a latent crash.
-import os as _os
+# Persistent XLA compilation cache: with it a repeat CLI invocation skips
+# compiling the counting and eval programs.  JAX_COMPILATION_CACHE_DIR (read
+# by JAX itself) or NTSM_NO_COMPILE_CACHE=1 overrides the default location
+# inside the checkout (utils/machine.py compile_cache_dir).
+from ntsm_tpu.utils.machine import enable_compile_cache as _enable_cache  # noqa: E402
 
-if not _os.environ.get("NTSM_NO_COMPILE_CACHE") and not _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR"
-):
-    from ntsm_tpu.utils.machine import machine_signature as _msig
-
-    _sig = _msig()
-    _cache = _os.path.join(
-        _os.path.expanduser("~"), ".cache", "ntsm_tpu", f"xla-{_sig}"
-    )
-    try:
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # read-only home etc: run without the cache
+_enable_cache()
 
 __version__ = "0.1.0"
 

@@ -12,8 +12,10 @@ want results as arrays/objects instead of files:
 
     pairs = ntsm.evaluate(["a_counts.txt", "b_counts.txt"])  # -> list of rows
 
-Everything device-related (TPU vs CPU, single chip vs pod slice) is
-selected automatically; see docs/DESIGN.md for the architecture.
+Everything device-related (one GPU or all local GPUs) is selected
+automatically; the device engines refuse to fall back to JAX's CPU backend
+unless JAX_PLATFORMS=cpu asks for it.  See docs/DESIGN.md for the
+architecture.
 """
 
 from __future__ import annotations

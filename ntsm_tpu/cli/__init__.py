@@ -12,11 +12,20 @@ import sys
 
 
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
+    from ntsm_tpu.utils.device import NoAcceleratorError
+
+    try:
+        return _dispatch(list(sys.argv[1:] if argv is None else argv))
+    except NoAcceleratorError as e:
+        print(e, file=sys.stderr)
+        return 1
+
+
+def _dispatch(argv) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(
             "Usage: ntsm <count|eval|vcf|sitegen> [OPTIONS]\n"
-            "TPU-native sample-swap detection (ntsm-compatible).",
+            "Sample-swap detection on the GPU (ntsm-compatible).",
             file=sys.stderr,
         )
         return 0 if argv else 1

@@ -30,11 +30,8 @@ HELP = """Usage: ntsm count -s [FASTA] [OPTION]... [FILES...]
   -h, --help             Display this dialog.
   -v, --verbose          Display verbose output.
       --version          Print version information.
-      --engine = STR     ntsm_tpu extension: tpu (default), golden, pallas.
-                         pallas runs the default v3 pipeline with the
-                         window-hash stage as a fused Pallas VPU kernel
-                         (the table probe stays in XLA either way — Mosaic
-                         has no table gather).
+      --engine = STR     ntsm_tpu extension: tpu (default; the device
+                         engine) or golden (the NumPy oracle on the host).
       --checkpoint = STR ntsm_tpu extension: restartable snapshot file; an
                          interrupted run resumes from it automatically.
       --checkpoint-every = INT
@@ -43,14 +40,13 @@ HELP = """Usage: ntsm count -s [FASTA] [OPTION]... [FILES...]
                          the device pipeline to this directory.
       --seglen = INT     ntsm_tpu extension: device segment length [256].
                          512 shaves upload bytes/base (halo + sidecar
-                         amortize over more slots; BASELINE.md seglen
-                         A/B) at 2x the per-batch candidate budget
-                         pressure; batch rows scale inversely so the
-                         bases/step stay constant.
+                         amortize over more slots) at 2x the per-batch
+                         candidate budget pressure; batch rows scale
+                         inversely so the bases/step stay constant.
       --distributed      ntsm_tpu extension: multi-host mode. Initializes
-                         jax.distributed (from JAX_COORDINATOR_ADDRESS /
-                         JAX_NUM_PROCESSES / JAX_PROCESS_ID or pod
-                         autoconfig), shards the input files across hosts,
+                         jax.distributed from JAX_COORDINATOR_ADDRESS /
+                         JAX_NUM_PROCESSES / JAX_PROCESS_ID (all three
+                         required), shards the input files across hosts,
                          psums the count vector, and prints from process 0
                          only. NTSM_DISTRIBUTED=1 is equivalent.
 """
@@ -111,6 +107,10 @@ def run(argv) -> int:
         elif flag in ("-v", "--verbose"):
             opts = opts.replace(verbose=opts.verbose + 1)
         elif flag == "--engine":
+            if val not in ("tpu", "golden"):
+                print(f"ntsm count: unknown --engine {val!r} "
+                      "(choices: tpu, golden)", file=sys.stderr)
+                return 1
             engine = val
         elif flag == "--checkpoint":
             opts = opts.replace(checkpoint=val)
@@ -165,7 +165,11 @@ def run(argv) -> int:
             stdout_shield,
         )
 
-        init_distributed()
+        try:
+            init_distributed()
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
         import jax
 
         # gloo CPU collectives print their connection banner to stdout;
@@ -218,9 +222,7 @@ def run(argv) -> int:
             if result.early_term:
                 print("Reached desired (-m) threshold", file=sys.stderr)
         else:
-            result = run_count(
-                table, my_files, opts, use_pallas=(engine == "pallas")
-            )
+            result = run_count(table, my_files, opts)
 
         if distributed:
             from ntsm_tpu.count.golden import max_counts_threshold

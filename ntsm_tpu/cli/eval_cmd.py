@@ -14,6 +14,11 @@ import time
 
 from ntsm_tpu.options import Options
 
+# --engine auto runs the exact host engine up to this many samples and the
+# device engine above it: the crossover of whole CLI runs, start-up and
+# compilation included, measured by scripts/time_eval_cutoff.py (PERF.md)
+AUTO_DEVICE_MIN_SAMPLES = 128
+
 HELP = """Usage: ntsm eval [FILES...]
 Processes sets of counts files and compares their similarity.
 If only a single file is provided general QC information returned.
@@ -48,8 +53,10 @@ If only a single file is provided general QC information returned.
                              jax.distributed; every process loads the count
                              files and the pairwise statistics shard the
                              sample rows over the global device mesh
-                             (in-kernel all_gather over ICI/DCN); process 0
-                             prints. NTSM_DISTRIBUTED=1 is equivalent.
+                             (in-kernel all_gather); process 0 prints.
+                             Needs JAX_COORDINATOR_ADDRESS /
+                             JAX_NUM_PROCESSES / JAX_PROCESS_ID.
+                             NTSM_DISTRIBUTED=1 is equivalent.
 """
 
 
@@ -159,20 +166,22 @@ def run(argv) -> int:
         return 1
 
     if opts.engine == "auto":
-        # exact (host f64, bit parity) runs at ~2800 pairs/s via the native
-        # kernel; the device engine's fixed upload/compile cost only pays
-        # for itself at cohort scale (crossover ~500 samples measured).
-        # Without the native kernel the exact engine is the ~45 pairs/s
-        # Python loop, so the crossover drops to where that stays seconds.
+        # exact (host f64, bit parity) runs the native pair kernel; the
+        # device engine's fixed start-up and compile cost only pays for
+        # itself at cohort scale (AUTO_DEVICE_MIN_SAMPLES).  Without the
+        # native kernel the exact engine is the slow Python loop, so the
+        # crossover drops to where that stays seconds.
         from ntsm_tpu import native as _native
 
         _lib = _native.load()
         cutoff = (
-            256
+            AUTO_DEVICE_MIN_SAMPLES
             if _lib is not None and hasattr(_lib, "ntsm_exact_pairs")
             else 32
         )
         opts = opts.replace(engine="exact" if len(files) <= cutoff else "tpu")
+    if opts.verbose > 0:
+        print(f"ntsm eval: engine {opts.engine}", file=sys.stderr)
     elif opts.engine == "exact" and len(files) > 1000 and not opts.only_merge:
         n_pairs = len(files) * (len(files) - 1) // 2
         print(
@@ -197,7 +206,11 @@ def run(argv) -> int:
 
         from ntsm_tpu.parallel.distributed import init_distributed, stdout_shield
 
-        init_distributed()
+        try:
+            init_distributed()
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
         import jax
 
         # every process loads all count files and runs the same dispatch

@@ -3,7 +3,7 @@
 This is the minimap2-style Thomas Wang hash the reference applies to the
 canonical (min of forward / reverse-complement) 2-bit k-mer encoding
 (reference: vendor/KseqHashIterator.hpp:129-139).  Only shifts, adds, xors
-and masks — all cheap on the TPU's emulated 64-bit integer path.
+and masks.
 
 Two implementations with identical results:
   * :func:`hash64_np` — vectorized numpy (golden model, table construction)
@@ -40,7 +40,7 @@ def hash64_np(key: np.ndarray, mask: np.uint64) -> np.ndarray:
 
 
 def hash64_jnp(key, mask):
-    """Same transform for traced uint64 arrays inside jit/pallas bodies."""
+    """Same transform for traced uint64 arrays inside jitted bodies."""
     import jax.numpy as jnp
 
     key = key.astype(jnp.uint64)

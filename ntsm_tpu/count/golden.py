@@ -27,8 +27,7 @@ class CountResult:
     total_reads: int
     early_term: bool
     wire_bytes: int = 0  # host->device bytes actually shipped (device
-    # engines only; 0 for the golden oracle) — the numerator of the
-    # link-efficiency roofline (scripts/exp_link_ab.py)
+    # engines only; 0 for the golden oracle)
 
     def site_max_sum(self, table: SiteTable):
         """Per-site, per-allele max and sum (FingerPrint.hpp:270-311)."""

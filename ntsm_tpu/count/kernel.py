@@ -12,8 +12,8 @@ step over a [batch, seglen] block of 2-bit codes:
   is uniform so its low bits are the address), scatter-add into the count
   vector (+1 overflow slot for misses).
 
-A Pallas fused kernel for this step lives in pallas_kernel.py; this XLA
-version is the portable reference implementation and the fallback.
+Engine v1: the v3 engine (kernel_v3.py) is the production path; this step
+serves the v1 engine and the mesh dry run.
 """
 
 from __future__ import annotations

@@ -192,7 +192,7 @@ def run_eval(data: CountData, opts: Options, out) -> None:
                 elif getattr(opts, "engine", "exact") == "tpu":
                     # device pair-block scoring of the candidate set —
                     # same pairs/order as the host loop, O(candidates ·
-                    # sites) on the VPU (reference pair loop:
+                    # sites) on the device (reference pair loop:
                     # CompareCounts.hpp:335-356)
                     from ntsm_tpu.eval.tpu import compute_score_pca_tpu
 

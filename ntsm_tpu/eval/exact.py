@@ -8,7 +8,7 @@ Replicates CompareCounts' arithmetic byte-for-byte:
 * relatedness / IBS tallies (calcRelatedness, :1144-1196)
 * result row layout (resultsStr, :844-921; header :726-730)
 
-The TPU engine (tpu.py) computes identical quantities as device linear
+The device engine (tpu.py) computes identical quantities as device linear
 algebra; this engine is the parity oracle and the default for small N.
 """
 

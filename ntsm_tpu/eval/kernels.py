@@ -1,4 +1,4 @@
-"""Device math for the TPU eval engine: genotype planes, indicator
+"""Device math for the eval engine: genotype planes, indicator
 tally matmuls, compensated chunked accumulation, the joint-likelihood
 passes, and the -p pair-block kernel.
 
@@ -18,18 +18,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-CHUNK = 256  # sites per f32 partial sum (1024 was 15% faster at N=768
-# but 7% slower at N=3202; 256 is the stable choice)
+CHUNK = 256  # sites per f32 partial sum (not yet re-tuned on the GPU)
 ROW_TILE = 64  # pair-block rows per joint-pass invocation
 
 
 def _two_sum(hi, lo, p):
     """Compensated (Knuth two-sum) f32-pair accumulation.
 
-    TPU f64 is software-emulated and a scan carrying an f64 accumulator ran
-    ~1000x slower than this (28 s vs 0.03 s for the same [N, C, c] sums on
-    v5e); the f32 hi/lo pair keeps ~2^-48 relative error, recombined in
-    real f64 on the host."""
+    The f32 hi/lo pair keeps ~2^-48 relative error, recombined in f64 on
+    the host; whether a native f64 accumulator is as fast on the GPU is
+    an open question (ROADMAP)."""
     s = hi + p
     z = s - hi
     e = (hi - (s - z)) + (p - z)
@@ -55,8 +53,8 @@ def _chunked_matmul_f64(lhs, rhs):
 
     def body(acc, xs):
         lc, rc = xs  # [N, c], [M, c]
-        # HIGHEST: on TPU the default f32 matmul runs in bf16 passes, which
-        # rounds the (non-indicator) value planes; force full f32.
+        # HIGHEST: the default f32 matmul precision may round the
+        # (non-indicator) value planes (TF32 on the GPU); force full f32.
         part = jnp.dot(
             lc,
             rc.T,
@@ -112,7 +110,11 @@ def _genotype_planes(x, y, mc, n_valid=None):
 
 
 def _tally_matmuls(het_l, hom_at_l, hom_cg_l, vall_l, het, hom_at, hom_cg, vall):
-    """The six [rows, N] indicator tallies (exact 0/1 f32 matmuls)."""
+    """The six [rows, N] indicator tallies (exact 0/1 f32 matmuls).
+
+    Default precision on purpose: both operands are 0/1, which TF32 (the
+    GPU's default f32 matmul input format) represents exactly, and the f32
+    accumulation stays exact while the sums stay below 2^24."""
     f32mm = lambda x, y: jnp.dot(x, y.T, preferred_element_type=jnp.float32)
     hom_l = hom_at_l + hom_cg_l
     hom = hom_at + hom_cg
@@ -133,16 +135,15 @@ def _planes_and_tallies(a, b, *, mc: float, chunk: int, n_valid=None):
     the single-sample likelihood planes and their pair sums (s1), and the
     chunked [C, N, c] layouts reused by the joint pass.
 
-    Moving this off the host matters twice over: the host is 1 core here
-    (f64 division over [N, L] was ~0.4 s per 16 samples), and the upload
-    drops from six [N, L] planes to the two count planes.
+    Computing this on the device also cuts the upload from six [N, L]
+    planes to the two count planes.
     """
     a = a.astype(jnp.float32)  # u16 wire widens here (no-op for f32)
     b = b.astype(jnp.float32)
     N, Lp = a.shape
     C = Lp // chunk
-    # indicator matmuls: inputs are exactly 0/1, so even the TPU's default
-    # bf16 matmul passes are error-free; sums stay exact integers in f32
+    # indicator matmuls: inputs are exactly 0/1, so even reduced-precision
+    # matmul inputs (TF32) are error-free; sums stay exact integers in f32
     # while below 2^24 (n_sites << 2^24).
     het, hom_at, hom_cg, vall, s_int, s_frac = _genotype_planes(
         a, b, mc, n_valid
@@ -157,7 +158,7 @@ def _planes_and_tallies(a, b, *, mc: float, chunk: int, n_valid=None):
     sf_hi, sf_lo = _chunked_matmul_f64(s_frac.reshape(cshape), v_c)
     s1 = (si_hi, si_lo, sf_hi, sf_lo)
 
-    # exact integer part of the joint term, MXU-bound (see _joint_int_matmuls)
+    # exact integer part of the joint term as matmuls (_joint_int_matmuls)
     jint = _joint_int_matmuls(a, b, vall, a, b, vall, mc, chunk)
 
     a_t = jnp.swapaxes(a.reshape(cshape), 0, 1)  # [C, N, c]
@@ -172,7 +173,7 @@ def _joint_tiles(ai, bi, vi, a, b, v, mc):
 
     The integer part of the joint term is NOT computed here — it
     decomposes into indicator matmuls ([aa>mc]·aa = aa − Σ_{v≤mc} v·[aa=v])
-    evaluated exactly on the MXU by _joint_int_matmuls; only the
+    evaluated exactly as matmuls by _joint_int_matmuls; only the
     data-dependent fraction needs this O(N²·sites) elementwise pass."""
     T = ai.shape[1]
     N = a.shape[1]
@@ -256,26 +257,12 @@ def _joint_row_tile(a_d, b_d, v_t, r0: int, N: int):
     return ai, bi, vi
 
 
-@functools.partial(jax.jit, static_argnames=("mc",))
-def _joint_frac_pallas(a_t, b_t, v_t, mc: float):
-    """[C, N, c] chunked planes -> full [N, N] fractional joint (hi, lo)
-    via the Pallas kernel (eval/pallas_joint.py)."""
-    from ntsm_tpu.eval.pallas_joint import joint_frac_full
-
-    def rows(x):  # [C, N, c] -> [N, Lp] in original site order
-        return jnp.swapaxes(x, 0, 1).reshape(x.shape[1], -1)
-
-    return joint_frac_full(rows(a_t), rows(b_t), rows(v_t), mc)
-
-
 PAIR_BLOCK = 4096  # candidate pairs per device invocation (-p path)
 
 
-PAIR_GATHER_CHUNKS = 8  # site chunks fetched per row gather (-p kernel):
-# the gather is probe-rate-bound, so wider rows are ~free until VMEM
-# pressure; measured 28.5 / 25.9 / 25.4 / 18.7 ms/block at g=1/2/4/8 and
-# flat at g=16 (scripts/profile_pairblock2.py, v5e) — results bitwise
-# identical across g (sub-chunks unroll through the same accumulators)
+PAIR_GATHER_CHUNKS = 8  # site chunks fetched per row gather (-p kernel;
+# not yet re-tuned on the GPU) — results are bitwise identical across g
+# (sub-chunks unroll through the same accumulators)
 
 
 @functools.partial(jax.jit, static_argnames=("g",))
@@ -284,8 +271,7 @@ def _chunk_planes(A, B, g: int = PAIR_GATHER_CHUNKS):
     (wire dtype kept: the scan body widens per sub-chunk).  Each row of
     the last dim holds g consecutive A chunks then g consecutive B
     chunks, so the -p pair kernel needs ONE gather per sample row per
-    scan step instead of 2g — the gather is probe-rate-bound (~210M
-    rows/s on this HBM, CLAUDE.md), so probes, not bytes, are the cost.
+    scan step instead of 2g.
     The planes are zero-padded up to a g*CHUNK multiple (the production
     Lp = 96512 is 377 odd chunks: +1.9% pad columns buys 8x fewer
     probes); pad sites are dead under the kernel's strict `> minCov`
@@ -320,13 +306,12 @@ def _pair_block_stats_v2(F_t, ii, jj, *, mc: float, n_valid, narrow: bool,
     fully fused: one scan over the site chunks whose body gathers the
     paired row chunks and computes every statistic in place.
 
-    The round-4 kernel (_pair_block_stats) gathered whole [P, Lp] f32
-    rows and built the genotype/s1 planes as [P, Lp] arrays BEFORE its
-    scan — ~40 GB of HBM traffic per 4096-pair block at the 96,287-site
-    scale, measured 123.5 ms/block (154.8 s for the N=3202 candidate
-    set, BASELINE.md round 4).  Chunk-local gathers keep every
-    intermediate VMEM-sized, and the fused A++B layout with g chunks per
-    gather cuts the probe count 2g-fold (the gather is probe-rate-bound).
+    The older kernel (_pair_block_stats) gathers whole [P, Lp] f32 rows
+    and builds the genotype/s1 planes as [P, Lp] arrays BEFORE its scan —
+    ~40 GB of device-memory traffic per 4096-pair block at the 96,287-site
+    scale.  Chunk-local gathers keep every intermediate small, and the
+    fused A++B layout with g chunks per gather cuts the gather count
+    2g-fold.
     The arithmetic per pair is unchanged for ANY g: sub-chunks are
     unrolled in site order through the same accumulator sequence
     (per-chunk f32 sums, compensated cross-chunk accumulation — the -a

@@ -112,7 +112,7 @@ class CountData:
     def s_single(self) -> np.ndarray:
         """[N, L] f64 per-site single-sample likelihood terms
         (computeSumLogPSingle, CompareCounts.hpp:968-991).  Lazy: only the
-        exact engine reads it; the TPU engine derives its decomposed form
+        exact engine reads it; the device engine derives its decomposed form
         on device.  max(den, 1) is exact — a zero denominator implies both
         masks are false (any min_cov >= 0), and it avoids the FP-invalid
         microtraps that made this ~3x slower on this host."""
@@ -133,7 +133,7 @@ class CountData:
     def cls(self) -> np.ndarray:
         """[N, L] genotype class (calcHomHetMiss,
         CompareCounts.hpp:742-768).  Lazy: only the exact engine and the
-        PCA projection index per-site classes; the TPU engine derives its
+        PCA projection index per-site classes; the device engine derives its
         indicator planes on device, and materializing [N, L] u8 + three
         masked assignments cost ~1 s per 256 samples of pure load time."""
         if self._cls is None:

@@ -3,14 +3,14 @@
 Projection (projectPCs, src/CompareCounts.hpp:116-218): per sample the
 genotype fraction AT/(AT+CG) is quantized to {0, 0.5, 1} (thresholds 0.25 /
 0.75), missing sites stay 0, the per-site center is subtracted and the
-result is rotated into `dim` principal components.  On TPU this is a single
-[N, L] @ [L, dim] matmul; the exact path mirrors the reference's long
+result is rotated into `dim` principal components.  On the fast path this
+is a single [N, L] @ [L, dim] matmul; the exact path mirrors the reference's long
 double centers (numpy longdouble) for byte parity.
 
 Candidate search (computeScorePCA, :285-528): the reference builds a
 nanoflann kd-tree and does per-sample radius queries with asymmetric
-pruning rules.  A kd-tree is the wrong shape for a TPU — the equivalent
-here is the dense pairwise distance matrix (one [N, dim] @ [dim, N] matmul)
+pruning rules.  A kd-tree is the wrong shape for dense batched
+hardware — the equivalent here is the dense pairwise distance matrix (one [N, dim] @ [dim, N] matmul)
 with the same radius tiers and pruning applied as masks.  The candidate SET
 is identical; only the search algorithm differs.
 """
@@ -251,8 +251,8 @@ def project_pcs(data: CountData, opts: Options, fast: bool | None = None) -> np.
 
     fast=True computes in f64 (BLAS) instead of numpy's software
     long-double loops; cloud agreement measured 2.9e-15 max abs at the
-    [3202, 96287] production shape with IDENTICAL candidate sets
-    (scripts/profile_pca.py).  Defaults to the engine selection: the
+    [3202, 96287] production shape with IDENTICAL candidate sets.
+    Defaults to the engine selection: the
     exact engine keeps long double for bit parity of the dist column.
 
     Row-blocked into preallocated scratch buffers: the whole-matrix form

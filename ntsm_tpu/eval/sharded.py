@@ -54,10 +54,10 @@ def _make_sharded_stats(mesh, *, min_cov: float, chunk: int, n_valid=None):
             (P("data"),) * 4,
             (P("data"),) * 4,
         ),
-        check_rep=False,
+        check_vma=False,
     )
     def stats(a_l, b_l):
-        # gather the (possibly u16) wire shards — half the ICI bytes —
+        # gather the (possibly u16) wire shards — half the collective bytes —
         # and widen to f32 after the collective
         a = jax.lax.all_gather(a_l, "data", axis=0, tiled=True).astype(
             jnp.float32
@@ -105,8 +105,8 @@ def _mesh_stat_planes(data, opts, mesh):
     """Row-sharded pairwise stat planes over the mesh: (tallies dict,
     s1 4-tuple, joint 4-tuple) of [Npad, N] device arrays.  On multi-host
     meshes each process feeds only its local row slice (assembled into
-    one global array) and the in-kernel all_gather spans hosts via
-    ICI/DCN; outputs stay row-sharded — run them through _replicate_tree
+    one global array) and the in-kernel all_gather spans hosts;
+    outputs stay row-sharded — run them through _replicate_tree
     before fetching."""
     from ntsm_tpu.eval.wire import _wire_planes
 

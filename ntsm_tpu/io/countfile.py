@@ -32,14 +32,13 @@ def format_counts(
     if total_kmers is not None:
         parts.append(f"#@TK\t{int(total_kmers)}\n#@KS\t{int(k)}")
     parts.append("\n#locusID\tcountAT\tcountCG\tsumAT\tsumCG\tdistinctAT\tdistinctCG\n")
-    mc = np.asarray(max_counts)
-    sc = np.asarray(sum_counts)
-    dc = np.asarray(distinct)
-    for i, sid in enumerate(site_ids):
-        parts.append(
-            f"{sid}\t{int(mc[i,0])}\t{int(mc[i,1])}\t{int(sc[i,0])}\t{int(sc[i,1])}"
-            f"\t{int(dc[i,0])}\t{int(dc[i,1])}\n"
-        )
+    # one bulk conversion to Python ints instead of six per row
+    cols = np.concatenate(
+        [np.asarray(max_counts), np.asarray(sum_counts), np.asarray(distinct)],
+        axis=1,
+    ).astype(np.int64).tolist()
+    for sid, (a, c, sa, sc, da, dc) in zip(site_ids, cols):
+        parts.append(f"{sid}\t{a}\t{c}\t{sa}\t{sc}\t{da}\t{dc}\n")
     return "".join(parts)
 
 
@@ -235,8 +234,8 @@ def load_count_wires(paths, pad_to: int = 256, block_cb=None,
     during the parse.
 
     Motivation: fresh multi-GB allocations first-touch at ~60 MB/s on this
-    host (VM page-fault pathology, measured scripts/profile_eval_load.py);
-    the wire planes are the only [N, *] arrays the -a TPU engine actually
+    host (VM page-fault pathology);
+    the wire planes are the only [N, *] arrays the -a device engine actually
     uploads, so everything else is folded into O(L) / O(N) accumulators.
     """
     from ntsm_tpu import native

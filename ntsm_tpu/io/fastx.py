@@ -492,10 +492,9 @@ class ParallelFileReader:
     The reference's only counting parallelism is one OpenMP thread per
     input file (FingerPrint.hpp:47); this is the same idea for the host
     pipeline: `threads` NativeBatchReaders each own a file subset and feed
-    one bounded queue.  Single-stream gzip decompression tops out at
-    ~130 Mbase/s/core, so multi-file gz inputs (the common
-    lane_1/lane_2/... layout) need the fan-out to keep a >130 Mbase/s
-    device fed.  Batch ORDER is nondeterministic across files, like the
+    one bounded queue.  Single-stream gzip decompression is bound to one
+    core, so multi-file gz inputs (the common lane_1/lane_2/... layout)
+    need the fan-out to keep the device fed.  Batch ORDER is nondeterministic across files, like the
     reference's threaded reads; counts are order-invariant and -m early
     termination is order-dependent there too.
     """

@@ -1,9 +1,9 @@
 """Native (C++) host runtime components.
 
-The counting hot path runs on TPU, but the host must parse and encode
-FASTQ fast enough to feed it (~150 Mbase/s/chip); the pure-Python reader
+The counting hot path runs on the device, but the host must parse and encode
+FASTQ fast enough to feed it; the pure-Python reader
 tops out far below that.  This package wraps `fastx_reader.cpp` — the
-TPU-native analogue of the reference's kseq parser (vendor/kseq.h:178-219)
+analogue of the reference's kseq parser (vendor/kseq.h:178-219)
 — via ctypes.  The .so is built on demand with g++ (see Makefile); when
 neither a prebuilt .so nor a compiler is available every caller falls back
 to the Python reader transparently.

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ(.gz) chunker + 2-bit batch encoder.
 //
-// The TPU-native replacement for the role kseq plays in the reference
+// The replacement for the role kseq plays in the reference
 // (vendor/kseq.h:178-219 feeding FingerPrint::computeCounts,
 // src/FingerPrint.hpp:46-87): stream reads off disk, translate to 2-bit
 // codes (A/a=0 C/c=1 G/g=2 T/t/U/u=3, else 4 — vendor/KseqHashIterator.hpp:
@@ -1080,10 +1080,8 @@ extern "C" long ntsm_format_eval_rows(
 
 extern "C" {
 
-// Host side of the BREAKS wire in one pass (the numpy form costs
-// ~32 ms per 32768x256 batch — 60% of the per-batch host budget at
-// 80 Mbase/s — via three [B, L] mask/nonzero passes; this scan is
-// ~2 ms).  side layout per kernel_v2.SIDE_*: row_len u16 LE + maxb
+// Host side of the BREAKS wire in one pass (the numpy form makes three
+// [B, L] mask/nonzero passes).  side layout per kernel_v2.SIDE_*: row_len u16 LE + maxb
 // u16 LE invalid positions, 0xFFFF pad.  Returns 0, or -1 when any
 // row has more than maxb in-length invalid slots (caller ships the
 // legacy vbits wire for the batch).

@@ -69,7 +69,7 @@ class Options:
 
     # ---- ntsm_tpu-specific extensions (not in the reference) ----
     # evaluation engine: "auto" picks exact for small sample counts and the
-    # TPU engine for large cohorts; "exact" forces the float64 host engine
+    # device engine for large cohorts; "exact" forces the float64 host engine
     # (byte-parity with the reference); "tpu" forces the device engine.
     engine: str = "auto"
     # read batch geometry for the device counting pipeline

@@ -3,9 +3,9 @@
 The reference is single-process OpenMP (SURVEY §2.3); scaling this
 framework across hosts is standard JAX multi-controller: every host runs
 the same program, `jax.distributed.initialize()` wires the processes, and
-the 1-D data mesh in mesh.py then spans all chips — counting stays
+the 1-D data mesh in mesh.py then spans all devices — counting stays
 collective-free in steady state (per-device count vectors) with one merge
-riding ICI/DCN at the end.
+at the end.
 
 Input sharding across hosts follows the file axis: each host passes its
 own shard of the FASTQ list to the counting engine (the count-file merge
@@ -14,7 +14,7 @@ single huge file, hosts use `ParallelFileReader`-style striding by batch
 index.
 
 On a single host this module is a no-op; nothing here is required for
-1-chip runs.
+single-process runs.
 """
 
 from __future__ import annotations
@@ -28,9 +28,11 @@ def init_distributed(
     process_id: int | None = None,
 ) -> bool:
     """Initialize jax.distributed from args or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU pod's automatic configuration).  Returns True if multi-process
-    mode was initialized."""
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).  All
+    three are required: nothing on a GPU host configures a cluster by
+    itself, so a missing one is an error rather than a silent
+    single-process run.  Returns True once multi-process mode is
+    initialized."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(
@@ -41,18 +43,25 @@ def init_distributed(
     if process_id is None and os.environ.get("JAX_PROCESS_ID"):
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    if coordinator_address is None and num_processes is None and process_id is None:
-        # TPU pods self-configure via the metadata server; elsewhere,
-        # single-process mode needs no initialization.
-        try:
-            jax.distributed.initialize()
-            return jax.process_count() > 1
-        except Exception:
-            return False
+    missing = [
+        name
+        for name, v in (
+            ("JAX_COORDINATOR_ADDRESS", coordinator_address),
+            ("JAX_NUM_PROCESSES", num_processes),
+            ("JAX_PROCESS_ID", process_id),
+        )
+        if v is None
+    ]
+    if missing:
+        raise ValueError(
+            "ntsm --distributed needs JAX_COORDINATOR_ADDRESS (host:port), "
+            "JAX_NUM_PROCESSES and JAX_PROCESS_ID; missing: "
+            + ", ".join(missing)
+        )
     try:
         # CPU cross-process collectives need gloo (no-op once a backend
-        # exists; TPU ignores it) — this is what lets the 2-process
-        # CPU-mesh tests exercise the same code path as a pod
+        # exists; GPUs use NCCL) — this is what lets the 2-process
+        # CPU-mesh tests exercise the same code path as several hosts
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
         pass
@@ -101,8 +110,7 @@ def allreduce_sum(x_np):
     """Sum a host-local numpy array across all processes; every process
     returns the global total.
 
-    One collective over the global device mesh (ICI within a slice, DCN
-    across hosts): the host partial rides its first local device as row 0
+    One collective over the global device mesh: the host partial rides its first local device as row 0
     of a [local_devices, ...] block (other rows zero), and a global
     axis-0 sum over the process-spanning array is exactly the cross-host
     reduction.  Single-process: identity.

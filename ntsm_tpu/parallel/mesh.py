@@ -1,8 +1,8 @@
 """Multi-chip sharding for counting and evaluation.
 
 The reference's only parallelism is single-node OpenMP (thread-per-file
-fan-out with atomic counter updates, src/FingerPrint.hpp:46-103).  The
-TPU-native layout is a 1-D data mesh:
+fan-out with atomic counter updates, src/FingerPrint.hpp:46-103).  Here
+the layout is a 1-D data mesh over the local devices:
 
 * counting: read batches are sharded over the mesh ("data parallelism");
   every device owns a private count vector (no atomics), and the single
@@ -10,8 +10,8 @@ TPU-native layout is a 1-D data mesh:
   communication.
 * evaluation: the sample axis is sharded; each device computes the tally /
   score block for its sample rows against the all_gather'ed planes of all
-  samples (the [samples, sites] planes are ~0.4 MB/sample, so ICI traffic
-  is trivial next to the O(N² sites) compute).
+  samples (the [samples, sites] planes are ~0.4 MB/sample, so the
+  collective traffic is trivial next to the O(N² sites) compute).
 """
 
 from __future__ import annotations
@@ -22,16 +22,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map as _shard_map_new
-
-    def shard_map(f=None, **kw):  # jax >= 0.8 renamed check_rep -> check_vma
-        if "check_rep" in kw:
-            kw["check_vma"] = kw.pop("check_rep")
-        return _shard_map_new(f, **kw) if f is not None else _shard_map_new(**kw)
-
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ntsm_tpu.count.kernel import count_step_impl
@@ -58,7 +49,7 @@ def make_sharded_count_step(mesh: Mesh, k: int, n_kmers: int):
         mesh=mesh,
         in_specs=(P("data"), P("data"), P(), P(), P("data"), P("data"), P("data")),
         out_specs=(P("data"), P("data"), P("data")),
-        check_rep=False,
+        check_vma=False,
     )
     def step(codes, lengths, keys, vals, counts, total_kmers, total_hits):
         c, tk, th = count_step_impl(
@@ -86,7 +77,6 @@ def make_sharded_count_step_v3(
     slots: int,
     bbits: int,
     cand_k: int | None = None,
-    pallas_hash: bool = False,
     seg_c=_USE_DEFAULT,  # int, None (flat compaction), or kernel_v3.SEG_C
     seg_k1: int | None = None,
 ):
@@ -113,15 +103,6 @@ def make_sharded_count_step_v3(
     if seg_k1 is None:
         seg_k1 = SEG_K1
 
-    if pallas_hash:
-        from ntsm_tpu.count.pallas_kernel import pallas_window_hashes_packed
-
-        def hash_stage(p, v):
-            return pallas_window_hashes_packed(p, v, k, L)
-    else:
-        def hash_stage(p, v):
-            return window_hashes_packed(p, v, k, L)
-
     ck = CAND_K if cand_k is None else cand_k
 
     @functools.partial(
@@ -129,10 +110,10 @@ def make_sharded_count_step_v3(
         mesh=mesh,
         in_specs=(P("data"), P("data"), P(), P(), P(), P("data")),
         out_specs=(P("data"), P("data")),
-        check_rep=False,
+        check_vma=False,
     )
     def step(packed, vbits, fp_t, keys_t, vals_t, counts):
-        h, valid = hash_stage(packed, vbits)
+        h, valid = window_hashes_packed(packed, vbits, k, L)
         c, diag = probe_and_count(
             h,
             valid,
@@ -155,7 +136,7 @@ def make_sharded_count_step_v3(
 @functools.partial(jax.jit, static_argnames=())
 def merge_counts_across_devices(counts_dk):
     """Final count merge: one reduction of the [D, n_kmers+1] state — the
-    TPU equivalent of the reference's per-update `omp atomic`."""
+    device-side equivalent of the reference's per-update `omp atomic`."""
     return counts_dk.sum(axis=0)
 
 
@@ -170,6 +151,7 @@ def make_sharded_tally(mesh: Mesh):
     )
     def tally(rows_local, cols_local):
         cols = jax.lax.all_gather(cols_local, "data", axis=0, tiled=True)
+        # 0/1 planes: exact at default precision (TF32 keeps 0 and 1)
         return jnp.dot(rows_local, cols.T, preferred_element_type=jnp.float32)
 
     return jax.jit(tally)

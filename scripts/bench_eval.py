@@ -4,10 +4,12 @@ Generates N human-scale synthetic count files (96287 sites, ~30x
 coverage, realistic genotype structure incl. duplicate and related pairs),
 then measures end-to-end wall time (load + score + format) of:
 
-  * our TPU engine        (`ntsm eval -a`, compute_score_all_tpu)
+  * our device engine     (`ntsm eval -a`, compute_score_all_tpu)
   * the reference C++     (`ntsmEval -a -t <T>`) if a binary is given
 
-Prints one JSON line per engine:
+The generators (make_count_files, make_pca_artifacts) also feed
+chip_smoke.py.  Prints the device first (refuses to run the device engine
+without a GPU), then one JSON line per engine:
   {"metric": "eval_pairs_per_s", "engine": ..., "n_samples": N,
    "value": pairs/s, "wall_s": ...}
 
@@ -31,8 +33,12 @@ N_SITES = 96287
 
 
 def make_count_files(outdir: str, n_samples: int, rng, dirty_frac=0.0,
-                     spread=None) -> list[str]:
-    """spread=(mat, K): population-structured cohort — samples fall into
+                     spread=None, n_sites: int = N_SITES,
+                     start: int = 0) -> list[str]:
+    """Write n_samples count files s{start:04d}_counts.txt onward.  The
+    cohort's first two samples (start == 0) are a planted duplicate pair.
+
+    spread=(mat, K): population-structured cohort — samples fall into
     K clusters laid out on a grid in the rotation's (PC0, PC1) plane by
     shifting each cluster's allele frequencies along sign(mat[:, 0/1]).
     One-blob cohorts put 79-90% of pairs inside the tier-1 search radius
@@ -40,9 +46,9 @@ def make_count_files(outdir: str, n_samples: int, rng, dirty_frac=0.0,
     case (only within-cluster pairs are candidates, ~1/K of all pairs)."""
     from ntsm_tpu.io.countfile import format_counts
 
-    site_ids = [f"rs{100000+i}" for i in range(N_SITES)]
-    distinct = np.full((N_SITES, 2), 13, dtype=np.int64)
-    freq = rng.uniform(0.05, 0.95, size=N_SITES)
+    site_ids = [f"rs{100000+i}" for i in range(n_sites)]
+    distinct = np.full((n_sites, 2), 13, dtype=np.int64)
+    freq = rng.uniform(0.05, 0.95, size=n_sites)
     deltas = None
     if spread is not None:
         mat, K = spread
@@ -57,15 +63,15 @@ def make_count_files(outdir: str, n_samples: int, rng, dirty_frac=0.0,
 
     paths = []
     base_geno = None
-    for s in range(n_samples):
+    for s in range(start, start + n_samples):
         fs = freq
         if deltas is not None:
             fs = np.clip(freq + deltas[s % len(deltas)], 0.02, 0.98)
         if s == 1 and base_geno is not None:
             geno = base_geno  # duplicate pair (sample swap)
         else:
-            geno = (rng.random(N_SITES) < fs).astype(np.int8) + (
-                rng.random(N_SITES) < fs
+            geno = (rng.random(n_sites) < fs).astype(np.int8) + (
+                rng.random(n_sites) < fs
             ).astype(np.int8)
             if s == 0:
                 base_geno = geno
@@ -74,12 +80,12 @@ def make_count_files(outdir: str, n_samples: int, rng, dirty_frac=0.0,
         at = rng.poisson(lam * (2 - geno)).astype(np.int64)
         cg = rng.poisson(lam * geno).astype(np.int64)
         # sequencing-error cross-talk
-        at += rng.poisson(0.02 * lam, size=N_SITES)
-        cg += rng.poisson(0.02 * lam, size=N_SITES)
+        at += rng.poisson(0.02 * lam, size=n_sites)
+        cg += rng.poisson(0.02 * lam, size=n_sites)
         if dirty_frac and rng.random() < dirty_frac:
             # "dirty" sample: >30% missing sites -> infinite PCA search
             # radius tier (Options.pc_miss_site2), the -p worst case
-            miss = rng.random(N_SITES) < 0.4
+            miss = rng.random(n_sites) < 0.4
             at[miss] = 0
             cg[miss] = 0
         mx = np.stack([at, cg], axis=1)
@@ -94,7 +100,8 @@ def make_count_files(outdir: str, n_samples: int, rng, dirty_frac=0.0,
     return paths
 
 
-def make_pca_artifacts(outdir: str, rng, dims: int = 20, mat=None):
+def make_pca_artifacts(outdir: str, rng, dims: int = 20, mat=None,
+                       n_sites: int = N_SITES):
     """Synthetic-but-well-formed PCA artifacts at the human-site scale
     (the projection/radius machinery is agnostic to whether the rotation
     came from a real cohort).  Pass mat to pin a rotation generated
@@ -102,14 +109,14 @@ def make_pca_artifacts(outdir: str, rng, dims: int = 20, mat=None):
     its sign pattern, so count files and rot.tsv must agree)."""
     norm = os.path.join(outdir, "norm.txt")
     with open(norm, "w") as fh:
-        fh.write("\n".join(f"{v:.6f}" for v in rng.uniform(0, 1, N_SITES)))
+        fh.write("\n".join(f"{v:.6f}" for v in rng.uniform(0, 1, n_sites)))
         fh.write("\n")
     rot = os.path.join(outdir, "rot.tsv")
     if mat is None:
-        mat = rng.normal(0, 0.003, size=(N_SITES, dims))
+        mat = rng.normal(0, 0.003, size=(n_sites, dims))
     with open(rot, "w") as fh:
         fh.write("AlleleID\t" + "\t".join(f"PC{i}" for i in range(dims)) + "\n")
-        for i in range(N_SITES):
+        for i in range(n_sites):
             fh.write(f"rs{100000+i}\t" + "\t".join(f"{x:.8f}" for x in mat[i]) + "\n")
     return rot, norm
 
@@ -141,6 +148,12 @@ def main() -> None:
               file=sys.stderr)
     n_pairs = n_samples * (n_samples - 1) // 2
 
+    if not exact_mode:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from gpu_check import require_gpu
+
+        print(f"# device: {require_gpu('bench_eval')}", file=sys.stderr)
+
     # --- our engine, end-to-end through the CLI code path ---
     from ntsm_tpu.eval.tpu import load_count_data_eval as load_count_data
     from ntsm_tpu.options import Options
@@ -169,9 +182,9 @@ def main() -> None:
         "value": round(n_pairs / wall, 1), "wall_s": round(wall, 2),
     }))
 
-    # --- -p (PCA-filtered) on the same (30%-dirty) cohort: VERDICT r1 #4
-    # done-criterion — the device pair-block scorer must beat -a even when
-    # every dirty sample sits in the infinite-radius tier ---
+    # --- -p (PCA-filtered) on the same (30%-dirty) cohort: the device
+    # pair-block scorer should beat -a even when every dirty sample sits
+    # in the infinite-radius tier ---
     if pca_mode:
         from ntsm_tpu.eval.pca import pca_candidates, project_pcs, search_radii
         from ntsm_tpu.eval.tpu import compute_score_pca_tpu

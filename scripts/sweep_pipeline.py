@@ -2,7 +2,8 @@
 real device: dense 150bp counting, human-scale table.
 
 Usage: python scripts/sweep_pipeline.py [mbase] [reps]
-Writes one line per (depth, window, rep) and a ranked summary.
+Writes the device, one line per (depth, window, rep) and a ranked
+summary.  Refuses to run without a GPU.
 """
 
 import os
@@ -13,11 +14,15 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
     mbases = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    from gpu_check import require_gpu
+
+    print(f"# device: {require_gpu('sweep_pipeline')}", flush=True)
     readlen = 150
     n_reads = mbases * 1_000_000 // readlen
     rng = np.random.default_rng(7)

@@ -1,4 +1,4 @@
-"""The breaks wire (VERDICT r4 #3b): row_len + explicit invalid
+"""The breaks wire: row_len + explicit invalid
 positions replaces the [L/8] validity bitmask on the single-device v3
 upload path.  Pins (1) bitwise (codes, valid) parity of the device
 unpack against the legacy vbits unpack, (2) the N-rich sidecar
@@ -140,3 +140,21 @@ def test_checkpoint_cadence_survives_wire_flip(rng, tmp_path):
     # LAST snapshot must come from beyond the first flip (i.e. cadence
     # did not die after the partial-group flush)
     assert n_snap >= 8, n_snap
+
+
+def test_segments_past_u16_keep_the_vbits_wire(rng, tmp_path):
+    """The sidecar's row_len and positions are u16 with a 0xFFFF pad
+    sentinel, so a 65536-slot segment cannot ride the breaks wire; the
+    engine keeps vbits for it and long reads still count exactly."""
+    sites_path = str(tmp_path / "sites.fa")
+    _, sites = make_site_fasta(rng, n_sites=6, path=sites_path)
+    fq = str(tmp_path / "long.fq")
+    make_reads_fastq(rng, sites, coverage=2, read_len=70000,
+                     n_noise_reads=1, path=fq)
+    table = load_site_table(sites_path, k=19, allow_dupes=False)
+    golden = count_files(table, [fq])
+    cfg = EngineConfig(batch_reads=2, segment_len=65536)
+    res = run_count_v3(table, [fq], Options(), cfg)
+    np.testing.assert_array_equal(res.counts, golden.counts)
+    assert res.total_kmers == golden.total_kmers
+    assert res.total_hits == golden.total_hits

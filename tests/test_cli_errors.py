@@ -128,3 +128,28 @@ def test_count_summary_file_flag(capsys, tmp_path, rng):
     assert "Sites Covered by at least one k-mer:" in text
     # stdout still carries the counts table
     assert "#locusID" in captured.out
+
+
+def test_count_unknown_engine_rejected(capsys, tmp_path, rng):
+    """--engine takes tpu or golden; any other name (the removed pallas
+    engine included) is a usage error, not a silent default."""
+    sites = str(tmp_path / "s.fa")
+    make_site_fasta(rng, n_sites=2, path=sites)
+    rc, out, err = _run(
+        count_cmd, ["--engine", "pallas", "-s", sites, sites], capsys
+    )
+    assert rc == 1
+    assert out == ""
+    assert "unknown --engine 'pallas'" in err and "tpu, golden" in err
+
+
+def test_distributed_without_cluster_variables(monkeypatch):
+    """--distributed with no coordinator variables is an error naming the
+    missing ones, not a silent single-process run."""
+    from ntsm_tpu.parallel.distributed import init_distributed
+
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="JAX_COORDINATOR_ADDRESS"):
+        init_distributed()

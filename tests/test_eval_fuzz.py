@@ -1,4 +1,4 @@
-"""Randomized eval parity: TPU engine vs exact engine over random cohorts
+"""Randomized eval parity: device engine vs exact engine over random cohorts
 and flag combinations. Integer columns must be identical; scores within
 f32-accumulation error (measured worst 1.5e-5 abs over 30 trials)."""
 

@@ -1,4 +1,4 @@
-"""TPU eval engine vs the exact engine: identical integer tallies,
+"""Device eval engine vs the exact engine: identical integer tallies,
 score agreement to tight tolerance, identical classification."""
 
 import io

@@ -70,22 +70,3 @@ def test_fuzz_count_parity_all_engines(rng, tmp_path, trial):
         assert res.total_hits == golden.total_hits
         assert res.total_bases == golden.total_bases
         assert res.total_reads == golden.total_reads
-
-
-def test_fuzz_pallas_parity(rng, tmp_path):
-    trng = np.random.default_rng(777)
-    sites_path = str(tmp_path / "sites.fa")
-    _, sites = make_site_fasta(trng, n_sites=8, path=sites_path)
-    fq = str(tmp_path / "adv.fq")
-    _adversarial_fastq(trng, sites, fq)
-    table = load_site_table(sites_path, k=19, allow_dupes=False)
-    golden = count_files(table, [fq])
-    res = run_count(
-        table,
-        [fq],
-        Options(),
-        EngineConfig(batch_reads=32, segment_len=64),
-        use_pallas=True,
-    )
-    np.testing.assert_array_equal(res.counts, golden.counts)
-    assert res.total_kmers == golden.total_kmers

@@ -1,4 +1,4 @@
-"""Production-shape run of the REAL centers file (VERDICT r3 #4).
+"""Production-shape run of the REAL centers file.
 
 test_real_centers.py proves the 96,287 long-double parses and a 3-sample
 projection against a Decimal oracle; this tier runs the real
@@ -15,7 +15,7 @@ path), asserting the candidate SETS are identical and pinning digests of
 the cloud and the emitted TSV so any arithmetic regression at production
 dimensions is loud.
 
-Slow-marked (deselected by default; ~1-2 min, host-only — no TPU needed):
+Slow-marked (deselected by default; ~1-2 min, host-only — no GPU needed):
 
     python -m pytest tests/test_real_centers_scale.py -m slow -q
 """
